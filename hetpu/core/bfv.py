@@ -5,7 +5,7 @@ Replaces the SEAL BFV path the reference uses in 4 demos
 batch_matmul_bfv :351-493, matpow :631-743) plus the
 ``invariant_noise_budget`` probes (:195-199, 479-480, 724-725).
 
-TPU-native design decisions:
+Design decisions:
 * BFV ciphertexts are **NTT+Montgomery resident** exactly like CKKS — so
   add/sub/plain-mult/relinearize/rotate reuse the CKKS evaluator verbatim
   (rotate_rows = galois element 5^k, rotate_columns = conjugation element,

@@ -1,6 +1,6 @@
 """Ciphertext / Plaintext pytrees.
 
-TPU-first representation (SURVEY.md §7): a ciphertext is a single
+Representation (SURVEY.md §7): a ciphertext is a single
 limb-planar uint32 array ``[parts, L, N]`` (batched: ``[..., parts, L, N]``)
 in **NTT evaluation order, Montgomery form** — the resident format for every
 evaluator op, the analog of SEAL's ``Ciphertext`` in NTT form.  ``level``

@@ -114,11 +114,9 @@ class KeySwitchPlan:
     foreign_cat_tables: object
     dhat: np.ndarray             # [ℓ+1,R]  (D_j/q_i) mod r
     dhat_shoup: np.ndarray
-    # fused lift+NTT view of dhat (mxu_ntt.ntt_fwd_lifted): row f of the
-    # concatenated-foreign basis takes Σ_{i<α} y[dig_f·α + i]·lift_w[f,i]
-    # (zero-padded for short digits) — the digit lift computed inside the
-    # forward-NTT kernel's prologue, skipping the HBM round-trip of the
-    # lifted planes
+    # lift view of dhat for the int8 digit path (int8_ntt.ntt_fwd_lifted):
+    # row f of the concatenated-foreign basis takes
+    # Σ_{i<α} y[dig_f·α + i]·lift_w[f,i] (zero-padded for short digits)
     lift_w: np.ndarray           # [F, α] u32
     lift_ws: np.ndarray          # [F, α]
     lift_dig: np.ndarray         # [F] int32 digit index per foreign row

@@ -10,7 +10,7 @@ a_k = m_k·ζ^k these values are one length-N (i)FFT:
     m(ζ^{2j+1}) = Σ_k (m_k ζ^k) e^{2πi jk/N}  =  N·ifft(a)[j]
 
 so encode = fft, decode = ifft — O(N log N) in numpy float64 (encode/decode
-are client-side host ops in the offload model; the TPU never needs them in
+are client-side host ops in the offload model; the device never needs them in
 the hot path — masks/twiddles are encoded once and cached).
 
 Slot order.  Slot s ↔ exponent 5^s mod 2N, conjugate pair at -5^s.  This is

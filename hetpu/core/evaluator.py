@@ -24,7 +24,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from . import galois, ip_kernel, mxu_fbc
+from . import backend, galois, int8_ntt, rns
 from .ciphertext import Ciphertext, Plaintext, check_add_compat, scales_close
 from .context import Context, KeySwitchPlan, RescalePlan
 from .keys import GaloisKeys, KSwitchKey, RelinKeys
@@ -188,40 +188,27 @@ class Evaluator:
         #    from the still-NTT-domain input with a single Shoup multiply —
         #    no INTT→NTT roundtrip (J·α fewer key-basis NTT planes).
         y = ntt_inv(d, tabs, strip_mont=True, extra=plan.dig_inv)
-        from . import mxu_ntt
-        if (mxu_ntt.enabled() and not mxu_fbc.enabled()
+        if (backend.ntt_path() == backend.INT8
                 and hasattr(plan.foreign_cat_tables, "sub1")):
-            # FUSED lift+NTT: the digit lift runs in the forward-NTT
-            # kernel's prologue (mxu_ntt.ntt_fwd_lifted) — the op is
-            # HBM-bandwidth-bound, and this skips the full write+read of
-            # the lifted planes between the two passes.  Bit-exact to the
-            # explicit loop below (same accumulation order, zero-padded
-            # tail terms).
-            lifted_cat = mxu_ntt.ntt_fwd_lifted(
+            # lift folded into the digit NTT's first product input
+            # (int8_ntt.ntt_fwd_lifted).  Bit-exact to the explicit loop
+            # below (same accumulation order, zero-padded tail terms).
+            lifted_cat = int8_ntt.ntt_fwd_lifted(
                 y, plan.lift_w, plan.lift_ws, plan.lift_dig,
                 plan.foreign_cat_tables)
         else:
-            use_mxu = mxu_fbc.enabled()
             accs = []
             for di, (lo, hi) in enumerate(plan.digit_bounds):
-                if use_mxu:
-                    # centered digit lift Σ v̂_i·d̂_i as ONE s8 digit
-                    # matmul on the MXU (mxu_fbc) — the centered
-                    # representative differs by a multiple of D,
-                    # standard mod-up noise
-                    accs.append(mxu_fbc.lift_plan(plan, di).apply(
-                        y[..., lo:hi, :]))
-                else:
-                    foreign = plan.foreign_idx[di]
-                    qf = plan.q[foreign]
-                    acc = None
-                    for i in range(lo, hi):
-                        term = shoup_mul(y[..., i: i + 1, :],
-                                         plan.dhat[i][foreign][:, None],
-                                         plan.dhat_shoup[i][foreign][:, None],
-                                         qf)
-                        acc = term if acc is None else mod_add(acc, term, qf)
-                    accs.append(acc)
+                foreign = plan.foreign_idx[di]
+                qf = plan.q[foreign]
+                acc = None
+                for i in range(lo, hi):
+                    term = shoup_mul(y[..., i: i + 1, :],
+                                     plan.dhat[i][foreign][:, None],
+                                     plan.dhat_shoup[i][foreign][:, None],
+                                     qf)
+                    acc = term if acc is None else mod_add(acc, term, qf)
+                accs.append(acc)
             # ONE forward NTT over every digit's lifted planes
             # (concatenated foreign bases — duplicate primes fine)
             lifted_cat = ntt_fwd(jnp.concatenate(accs, axis=-2),
@@ -255,14 +242,14 @@ class Evaluator:
                 [a[:J, :, : level + 1], a[:J, :, nd:]], axis=2)
         k, ks = sel(ksk.data), sel(ksk.shoup)
         q = plan.q
-
-        # Default path: unrolled digit loop (J is small and static) —
-        # one fusible XLA expression whose MACs are 6-mul shoup_muls; a
-        # lax.scan here costs ~0.8 ms/step of while-loop overhead on
-        # v5e (profiled).  ip_kernel's pallas variant (HETPU_PALLAS_IP=1)
-        # is bit-exact but measured ~6% slower in the fused op — the
-        # call boundary forces `ext` to materialize (see ip_kernel.py).
-        return ip_kernel.inner_product(ext, k, ks, q)
+        # unrolled digit loop (J is small and static): one fusible XLA
+        # expression of Shoup MACs, which XLA fuses into the decompose
+        # epilogue
+        acc = None
+        for j in range(J):
+            prod = shoup_mul(ext[..., j, None, :, :], k[j], ks[j], q)
+            acc = prod if acc is None else mod_add(acc, prod, q)
+        return acc
 
     def _inner_product(self, ext: jax.Array, level: int, ksk: KSwitchKey):
         """Σ_j digit_j ⊙ ksk_j, then mod-down by P = ∏ specials.
@@ -415,7 +402,7 @@ class Evaluator:
         (c_i·P vanishes on the special limbs since P ≡ 0 there, and the
         source limbs {dropped} ∪ specials are a contiguous tail slice).
         Saves the standalone rescale's whole INTT/FBC/NTT tower — ~20% of
-        the NTT planes of a mult+relin+rescale (profiled on v5e)."""
+        the NTT planes of a mult+relin+rescale."""
         level = ct3.level
         L = level + 1
         g = self.ctx.params.rescale_group
@@ -466,15 +453,7 @@ def _mod_down(acc: jax.Array, md, k: int) -> jax.Array:
 
 
 def _fbc_fwd_mont(u, fbc, dst_tables):
-    """Centered FBC + Montgomery forward NTT, fused on the MXU path
-    (mxu_ntt.ntt_fwd_fbc skips the HBM round-trip of the converted
-    planes — the op is bandwidth-bound)."""
-    from . import mxu_ntt
-    if mxu_fbc.enabled():
-        return ntt_fwd_mont(mxu_fbc.fbc_plan(fbc).apply(u), dst_tables)
-    if mxu_ntt.enabled() and hasattr(dst_tables, "sub1"):
-        return mxu_ntt.ntt_fwd_fbc(u, fbc, dst_tables, to_mont=True)
-    from . import rns
+    """Centered FBC + Montgomery forward NTT."""
     r_q = rns.fbc_apply(u, fbc, correct=True, premul=False)
     return ntt_fwd_mont(r_q, dst_tables)
 

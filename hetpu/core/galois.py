@@ -4,7 +4,7 @@ Replaces SEAL's ``util::GaloisTool`` + ``Evaluator::apply_galois`` /
 ``rotate_vector`` internals (the reference's rotation hot loop —
 ``he_linalg.cpp:589-638, 977-1003`` — bottoms out here).
 
-TPU-native design: in our NTT evaluation order (``out[i] = a(ψ^{2·br(i)+1})``
+Design: in our NTT evaluation order (``out[i] = a(ψ^{2·br(i)+1})``
 — pinned by tests/test_ntt.py::test_output_ordering), the automorphism
 σ_t: a(x) → a(x^t) is a *pure index permutation* of the evaluation values:
 σ_t(a) at exponent e equals a at exponent t·e mod 2N.  We precompute the

@@ -1,9 +1,9 @@
-"""uint32 modular-arithmetic kernels (pure JAX, CPU/TPU identical results).
+"""uint32 modular-arithmetic kernels (pure JAX, identical results on every backend).
 
 This is the layer SEAL implements with native u64/x86 intrinsics
 (``seal::util::multiply_uint_mod`` etc., used under every Evaluator call the
-reference makes — SURVEY.md §2b).  TPUs have no 64-bit integer multiply, so
-every op here is built from 32-bit lane arithmetic:
+reference makes — SURVEY.md §2b).  Every op here is built from 32-bit
+integer arithmetic (no u64 anywhere, so JAX needs no x64 mode):
 
   * ``mulhi_u32``   — high 32 bits of a 32x32 product via 16-bit schoolbook
   * ``mont_mul``    — Montgomery multiply (R=2^32), for ct x ct products

@@ -7,7 +7,7 @@ NTT-friendly prime generation (q ≡ 1 mod 2N), primitive roots of unity,
 modular inverses.  Everything here runs at context-build time on the host;
 nothing is traced by JAX.
 
-TPU-first constraint: all runtime primes are < 2^31 so that residues fit a
+Constraint: all runtime primes are < 2^31 so that residues fit a
 uint32 lane and Montgomery products fit two 32-bit words (SURVEY.md §7
 "hard parts" #1).  SEAL's 40/60-bit primes are replaced by deeper chains of
 30/31-bit primes with an equivalent precision budget.
@@ -78,7 +78,7 @@ def gen_primes(bit_size: int, count: int, ntt_size: int,
     exist at all).
     """
     if bit_size > 31:
-        raise ValueError("TPU-native build uses <=31-bit primes (uint32 lanes)")
+        raise ValueError("hetpu uses <=31-bit primes (uint32 residues)")
     found: list[int] = []
     # largest candidate of form k*ntt_size + 1 below 2^bit_size
     q = (2**bit_size - 1) // ntt_size * ntt_size + 1

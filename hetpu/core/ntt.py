@@ -1,10 +1,10 @@
 """Negacyclic NTT/INTT over RNS limb-planar arrays [..., L, N] (pure JAX).
 
-This is the TPU replacement for SEAL's ``util::ntt_negacyclic_harvey``
+This is the replacement for SEAL's ``util::ntt_negacyclic_harvey``
 (invoked inside every Evaluator op the reference uses — SURVEY.md §2b,
 "negacyclic NTT/INTT butterflies").  Design (SURVEY.md §7 Phase 1):
 
-  * limbs vectorized along the sublane axis, butterflies along lanes;
+  * limbs vectorized along axis -2, butterflies along the last axis;
   * forward = Cooley-Tukey decimation, natural → bit-reversed order;
     inverse = Gentleman-Sande, bit-reversed → natural order — no explicit
     bit-reversal permutation ever happens (same trick as SEAL/Harvey);
@@ -13,7 +13,7 @@ This is the TPU replacement for SEAL's ``util::ntt_negacyclic_harvey``
   * per-stage twiddle multiply is a Shoup multiply (6 int32 muls) with
     tables precomputed host-side;
   * the stage loop is unrolled at trace time (log2 N stages, static shapes,
-    each stage a single fused VPU op for XLA).
+    each stage a single fused elementwise op for XLA).
 
 Ciphertexts stay in this bit-reversed evaluation order between ops (like
 SEAL's CKKS pipeline); Galois/rotation tables account for the ordering
@@ -131,7 +131,7 @@ def build_tables(n: int, primes) -> NttTables:
 # ----------------------------------------------------------------------
 
 def build_best_tables(n: int, primes):
-    """Flat tables for small N; four-step (TPU-shaped) for N ≥ 4096.
+    """Flat tables for small N; four-step for N ≥ 4096.
     Both produce identical transforms — ntt_fwd/ntt_inv dispatch on the
     table type."""
     if n >= 4096:
@@ -168,14 +168,11 @@ def ntt_fwd(a: jnp.ndarray, t) -> jnp.ndarray:
 
 def ntt_fwd_mont(a: jnp.ndarray, t) -> jnp.ndarray:
     """Forward NTT of standard-form coeffs → Montgomery-form evaluations
-    (one extra Shoup pass to multiply by R mod q; fused into the Pallas
-    kernel's epilogue on TPU)."""
+    (one extra Shoup pass to multiply by R mod q; folded into the last
+    recombination on the int8 digit paths)."""
     if hasattr(t, "sub1"):
-        from . import mxu_ntt, pallas_ntt
-        if mxu_ntt.enabled():
-            return mxu_ntt.ntt_fwd(a, t, to_mont=True)
-        if pallas_ntt.enabled():
-            return pallas_ntt.ntt_fwd(a, t, to_mont=True)
+        from . import ntt4
+        return ntt4.ntt_fwd(a, t, to_mont=True)
     return shoup_mul(ntt_fwd(a, t), t.r, t.r_shoup, t.q)
 
 
@@ -186,7 +183,7 @@ def ntt_inv(a: jnp.ndarray, t, *, strip_mont: bool = False,
     Montgomery-form and the output standard-form (N⁻¹R⁻¹ folded into the
     final constant — the conversion is free).  ``extra`` (with
     strip_mont) folds an additional per-limb constant multiply into the
-    epilogue (free on the MXU path; one Shoup pass otherwise)."""
+    epilogue (free on the int8 digit paths; one Shoup pass otherwise)."""
     if hasattr(t, "sub1"):
         from . import ntt4
         return ntt4.ntt_inv(a, t, strip_mont=strip_mont, extra=extra)

@@ -1,8 +1,7 @@
-"""Four-step negacyclic NTT — the TPU-shaped transform.
+"""Four-step negacyclic NTT.
 
-The flat stage loop (ntt.py) pairs elements at strides N/2…1; the last
-log2(128) stages shuffle *within* 128-lane vectors, which lowers to slow
-lane-crossing ops.  The four-step decomposition N = n1·n2 turns the whole
+The flat stage loop (ntt.py) pairs elements at strides N/2…1 over one
+long axis.  The four-step decomposition N = n1·n2 turns the whole
 transform into:
 
     x[n1, n2] → sub-NTT along n1 (row ops, lanes fully vectorized)
@@ -20,7 +19,9 @@ big-ψ twist and the step-3 untwist (derivation in git history / tests).
 ntt.ntt_fwd / ntt_inv (pinned by tests/test_ntt4.py), so galois tables,
 the encoder, and every evaluator op are unchanged.  Dispatch: Context
 builds FourStepTables for N ≥ 4096, and ntt.ntt_fwd/ntt_inv route here
-when given one.
+when given one.  The butterfly stage loops below are the plain path;
+backend.py may send the transform to int8_ntt's digit formulation
+instead (same bits).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import jax.numpy as jnp
 
-from . import nt
+from . import backend, int8_ntt, nt
 from .modular import mod_add, mod_sub, shoup_mul, shoup_precompute
 from . import ntt as flat
 
@@ -148,8 +149,7 @@ def build_tables(n: int, primes) -> FourStepTables:
 
 
 # ----------------------------------------------------------------------
-# sub-NTT stage loops along axis -2 (the transform runs over sublanes,
-# fully vectorized over the trailing lane axis)
+# sub-NTT stage loops along axis -2 (vectorized over the trailing axis)
 # ----------------------------------------------------------------------
 
 def _fwd_axis2(x, t: flat.NttTables):
@@ -199,13 +199,11 @@ def _inv_axis2(x, t: flat.NttTables, *, strip_mont: bool):
                      t.n_inv_shoup.reshape(L, 1, 1), t.q.reshape(L, 1, 1))
 
 
-def ntt_fwd(a, t: FourStepTables):
-    """[..., L, N] → bit-exact equivalent of flat ntt_fwd."""
-    from . import mxu_ntt, pallas_ntt
-    if mxu_ntt.enabled():
-        return mxu_ntt.ntt_fwd(a, t)
-    if pallas_ntt.enabled():
-        return pallas_ntt.ntt_fwd(a, t)
+def ntt_fwd(a, t: FourStepTables, *, to_mont: bool = False):
+    """[..., L, N] → bit-exact equivalent of flat ntt_fwd (times R mod q
+    with ``to_mont``: Montgomery-form evaluations)."""
+    if backend.ntt_path() == backend.INT8:
+        return int8_ntt.ntt_fwd(a, t, to_mont=to_mont)
     lead = a.shape[:-2]
     L = a.shape[-2]
     x = a.reshape(*lead, L, t.n1, t.n2)
@@ -214,20 +212,18 @@ def ntt_fwd(a, t: FourStepTables):
     x = jnp.swapaxes(x, -1, -2)                               # [n2, n1]
     x = _fwd_axis2(x, t.sub2)                                 # along n2
     x = jnp.swapaxes(x, -1, -2)                               # [n1, n2]
-    return x.reshape(*lead, L, t.n)
+    x = x.reshape(*lead, L, t.n)
+    return shoup_mul(x, t.r, t.r_shoup, t.q) if to_mont else x
 
 
 def ntt_inv(a, t: FourStepTables, *, strip_mont: bool = False, extra=None):
-    from . import mxu_ntt, pallas_ntt
-    if mxu_ntt.enabled():
-        return mxu_ntt.ntt_inv(a, t, strip_mont=strip_mont, extra=extra)
+    if backend.ntt_path() == backend.INT8:
+        return int8_ntt.ntt_inv(a, t, strip_mont=strip_mont, extra=extra)
     if extra is not None:
         out = ntt_inv(a, t, strip_mont=strip_mont)
         q = t.q
         ex = np.asarray(extra, dtype=np.uint32).reshape(-1, 1)
         return shoup_mul(out, ex, shoup_precompute(ex, q), q)
-    if pallas_ntt.enabled():
-        return pallas_ntt.ntt_inv(a, t, strip_mont=strip_mont)
     lead = a.shape[:-2]
     L = a.shape[-2]
     x = a.reshape(*lead, L, t.n1, t.n2)

@@ -9,8 +9,8 @@ The reference hardcodes 26 modulus ladders by hand
 (poly_degree, level count, prime bits) — SURVEY.md §2c explicitly asks for
 this parameterization.
 
-TPU-first deviations from SEAL (documented, deliberate):
-  * all primes < 2^31 (uint32 lanes; no u64 on TPU) — SEAL's 40/60-bit
+Deviations from SEAL (documented, deliberate):
+  * all primes < 2^31 (uint32 residues, 32-bit arithmetic) — SEAL's 40/60-bit
     primes become more 30/31-bit primes with the same total modulus budget;
   * hybrid key-switching with one special prime (SEAL's default scheme);
   * default CKKS scale 2^30 paired with ~2^30 rescale primes.
@@ -65,7 +65,7 @@ class HeParams:
             raise ValueError("poly_degree must be a power of two >= 8")
         for q in self.moduli + self.special_moduli:
             if q >= 1 << 31:
-                raise ValueError("primes must be < 2^31 (TPU uint32 lanes)")
+                raise ValueError("primes must be < 2^31 (uint32 residues)")
             if (q - 1) % (2 * n) != 0:
                 raise ValueError(f"prime {q} not NTT-friendly for 2N={2*n}")
             if not nt.is_prime(q):
@@ -339,9 +339,8 @@ _PRESETS = {
     "bench_n14_a4": lambda: ckks_params(1 << 14, levels=8, scale_bits=30,
                                         num_special=4),
     # all-primes-<2^30 variant (scale 2^29, 30-bit first/special primes):
-    # every NTT basis qualifies for the 3-multiply approximate-mulhi
-    # Shoup path (mxu_ntt._shoup_scalarish fast branch — exact for
-    # q < 2^30)
+    # every product of two residues fits 60 bits, headroom a cheaper
+    # approximate-mulhi Shoup multiply can use
     "bench_n14_fast": lambda: ckks_params(1 << 14, levels=8, scale_bits=29,
                                           num_special=4,
                                           first_prime_bits=30,

@@ -1,6 +1,6 @@
 """Two-float (double-single) arithmetic: ~2^-45 precision out of f32 pairs.
 
-TPUs have no hardware float64 (SURVEY.md §7 hard-part 5).  Where the
+The kernels stay in float32 (SURVEY.md §7 hard-part 5).  Where the
 framework needs a near-f64 rounding decision — the FBC α-correction of
 exact BFV arithmetic (rns.fbc_apply(precise=True)) — we use classic
 error-free transformations on f32:

@@ -3,8 +3,10 @@
 
 Usage: python -m hetpu.demos <suite> <name> [--small] [--cpu]
 
-``--cpu`` pins JAX to host CPU (useful with ``--small`` for quick local
-verification when the default backend is a remote accelerator).
+``--cpu`` pins JAX to the host CPU (quick local checks with ``--small``).
+The standalone ``client`` suite always runs on the CPU: in the offload
+protocol the trusted client is a host, and the ``server`` process in the
+other shell holds the GPU (one process per card).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import sys
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     small = "--small" in argv
-    if "--cpu" in argv:
+    if "--cpu" in argv or (argv and argv[0] == "client"):
         import jax
         jax.config.update("jax_platforms", "cpu")
     argv = [a for a in argv if a not in ("--small", "--cpu")]

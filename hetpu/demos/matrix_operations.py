@@ -193,6 +193,7 @@ def demo_least_squares_2d(small=False):
     print(f"max err = {err:.3e}")
     if not small:
         assert err < 2 ** -10, f"least-squares error {err} above 2^-10"
+    return err
 
 
 def demo_batched_matmul_ckks(small=False):

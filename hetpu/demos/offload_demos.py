@@ -24,58 +24,59 @@ def _params_for(name, small):
 
 
 def _run_client(name, t, small):
+    """Run one client workload; returns (decrypted result, expected)."""
     cl = Client(_params_for(name, small), galois_steps=[1])
     rng = np.random.default_rng(0)
     slots = cl.sess.slots
     tm = Timer()
     if name == "simple":
         x1, x2 = rng.uniform(-1, 1, slots), rng.uniform(-1, 1, slots)
-        got = cl.simple(t, x1, x2)
+        got, want = cl.simple(t, x1, x2), x1 * x2
         tm.toc("offload simple time")
-        print("op1*op2 =", got.real[:4], "\nexpected =", (x1 * x2)[:4])
+        print("op1*op2 =", got.real[:4], "\nexpected =", want[:4])
     elif name == "batch_matmul":
         a = rng.uniform(-1, 1, (5, 5, slots))
         b = rng.uniform(-1, 1, (5, 5, slots))
         got = cl.batch_matmul(t, a, b)
         tm.toc("offload batch_matmul time")
         want = np.einsum("ikb,kjb->ijb", a, b)
-        print("max err =", np.abs(got.real[:, :, :slots] - want).max())
+        got = got[:, :, :slots]
+        print("max err =", np.abs(got.real - want).max())
     elif name == "inv":
         x = rng.uniform(0.5, 1.5, slots)
-        got = cl.inv(t, x, 0.8, 5)
+        got, want = cl.inv(t, x, 0.8, 5), 1 / x
         tm.toc("offload inv time")
-        print("1/x =", got.real[:4], "\nexpected =", (1 / x)[:4])
+        print("1/x =", got.real[:4], "\nexpected =", want[:4])
     elif name == "inv_sqrt_twice":
         x = rng.uniform(0.4, 0.7, slots)
-        got = cl.inv_sqrt_twice(t, x, 1.0, 4)
+        got, want = cl.inv_sqrt_twice(t, x, 1.0, 4), 1 / np.sqrt(2 * x)
         tm.toc("offload inv_sqrt_twice time")
-        print("1/sqrt(2x) =", got.real[:4], "\nexpected =",
-              (1 / np.sqrt(2 * x))[:4])
+        print("1/sqrt(2x) =", got.real[:4], "\nexpected =", want[:4])
     elif name == "abs":
         x = rng.uniform(0.5, 1.0, slots) * rng.choice([-1, 1], slots)
-        got = cl.abs(t, x, 1.0, 4)
+        got, want = cl.abs(t, x, 1.0, 4), np.abs(x)
         tm.toc("offload abs time")
-        print("|x| =", got.real[:4], "\nexpected =", np.abs(x)[:4])
+        print("|x| =", got.real[:4], "\nexpected =", want[:4])
     elif name == "twice_max":
         x1, x2 = rng.uniform(-1, 1, slots), rng.uniform(-1, 1, slots)
-        got = cl.twice_max(t, x1, x2, 1.0, 4)
+        got, want = cl.twice_max(t, x1, x2, 1.0, 4), 2 * np.maximum(x1, x2)
         tm.toc("offload twice_max time")
-        print("2max =", got.real[:4], "\nexpected =",
-              (2 * np.maximum(x1, x2))[:4])
+        print("2max =", got.real[:4], "\nexpected =", want[:4])
     elif name == "fft":
         n = 8 if small else 32
         sig = rng.uniform(-1, 1, n) + 1j * rng.uniform(-1, 1, n)
-        got = cl.fft(t, sig)
+        got, want = cl.fft(t, sig), np.fft.fft(sig)
         tm.toc("offload fft time")
-        print("max err =", np.abs(got - np.fft.fft(sig)).max())
+        print("max err =", np.abs(got - want).max())
     else:
         raise SystemExit(f"unknown client demo {name!r}")
+    return got, want
 
 
 def demo_client(name, small=False):
     t = native.connect()
     try:
-        _run_client(name, t, small)
+        return _run_client(name, t, small)
     finally:
         t.close()
 
@@ -86,14 +87,24 @@ def demo_server(name=None, small=False):
     print(f"served workload {w!r}")
 
 
+def serve_or_hang_up(t):
+    """serve_once on ``t``; if the server fails, close ``t`` so the
+    client's read ends with an error instead of waiting forever."""
+    try:
+        serve_once(t)
+    except BaseException:
+        t.close()
+        raise
+
+
 def demo_rookie(name, small=False):
     """Both roles in one process over a socketpair (reference
-    client_server_rookie.cpp)."""
+    client_server_rookie.cpp).  Returns (decrypted result, expected)."""
     ta, tb = native.pipe_pair()
-    th = threading.Thread(target=serve_once, args=(tb,))
+    th = threading.Thread(target=serve_or_hang_up, args=(tb,))
     th.start()
     try:
-        _run_client(name, ta, small)
+        return _run_client(name, ta, small)
     finally:
         th.join()
         ta.close()

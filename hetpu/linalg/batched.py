@@ -1,6 +1,6 @@
 """Slot-packed encrypted vectors and matrices.
 
-TPU-native re-design of the reference's ``he::linalg::BatchedVector`` /
+Re-design of the reference's ``he::linalg::BatchedVector`` /
 ``BatchedMatrix`` (``he_linalg.h:172-412``, ``he_linalg.cpp:388-1006``):
 
 * a BatchedVector is ONE ciphertext whose CKKS slots hold the vector;

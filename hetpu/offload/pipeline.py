@@ -15,12 +15,8 @@ SURVEY §4 "multi-node-without-a-cluster" harness, like
 ``client_server_rookie.cpp``).  On real multi-host hardware the SAME
 evaluator code spans processes: call ``jax.distributed.initialize()``
 first (env ``HETPU_COORD=host:port``, ``HETPU_PROC_ID``,
-``HETPU_NUM_PROCS``) and ``jax.devices()`` becomes the global pod slice;
-nothing else changes.
-
-``scripts/scaling_bench.py`` measures the scaling efficiency of the
-evaluator step over mesh sizes — the harness that produces BASELINE.md's
-2-host number when two hosts exist.
+``HETPU_NUM_PROCS``) and ``jax.devices()`` becomes the global device
+set; nothing else changes.
 """
 
 from __future__ import annotations

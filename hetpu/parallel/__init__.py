@@ -1,7 +1,7 @@
 """Multi-chip parallelism over a jax.sharding.Mesh.
 
 The reference has NO intra-job parallelism (single-threaded CPU + a TCP
-offload, SURVEY.md §2d) — every concept here is created for the TPU build
+offload, SURVEY.md §2d) — every concept here is created for this build
 and anchored to the reference's behavioral patterns:
 
 * **batch (dp)** — the slot/SIMD batching axis as a sharded array axis

@@ -2,7 +2,7 @@
 
 The reference threads ``(Evaluator, RelinKeys, GaloisKeys, Encoder)``
 through every call via the `%`-currying DSL (``he_operators.h:22-39``).
-The TPU-native equivalent is one object holding them all, passed to the
+The equivalent here is one object holding them all, passed to the
 linalg/math/fft layers.  It also centralizes scale/level alignment — the
 reference's manual ``he::util`` chain juggling (``he_util.h``).
 """

@@ -1,4 +1,4 @@
-"""Debug-check configs — the TPU analog of the race-detector / sanitizer
+"""Debug-check configs — the analog of the race-detector / sanitizer
 row in SURVEY.md §5 (the reference is single-threaded; here the hazards
 are nondeterministic lowering and accidental buffer donation/aliasing,
 which corrupt retained uint32 ciphertext buffers silently).

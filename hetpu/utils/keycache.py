@@ -21,6 +21,7 @@ import pathlib
 import numpy as np
 import jax.numpy as jnp
 
+from .. import CACHE_ROOT
 from ..core import serial
 from ..core.context import Context
 from ..core.encoding import CkksEncoder
@@ -31,7 +32,7 @@ from ..core.params import HeParams, preset as get_preset
 from ..session import Session
 
 CACHE_DIR = pathlib.Path(os.environ.get("HETPU_KEY_CACHE",
-                                        "/tmp/hetpu_keycache"))
+                                        CACHE_ROOT / "keys"))
 
 
 def cached_session(params: HeParams | str, *, seed: bytes,

@@ -3,11 +3,10 @@
 * ``trace(dir)`` — jax.profiler context; view in TensorBoard/Perfetto
   (SURVEY.md §5: the build's replacement for the reference's
   print-a-stopwatch observability).
-* ``op_latency`` — honest per-op wall-clock on remote-device backends:
-  chains each iteration's input to the previous output through a tag and
-  closes with a host fetch, so dispatch pipelining and runtime
-  memoization can't fake the number (see git history for the measured
-  pathologies this guards against).
+* ``op_latency`` — honest per-op wall-clock: chains each iteration's
+  input to the previous output through a tag and closes with a host
+  fetch, so dispatch pipelining and runtime memoization can't fake the
+  number.
 """
 
 from __future__ import annotations
@@ -18,9 +17,11 @@ import time
 import jax
 import jax.numpy as jnp
 
+from .. import CACHE_ROOT
+
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/hetpu_trace"):
+def trace(log_dir: str = str(CACHE_ROOT.parent / "traces")):
     jax.profiler.start_trace(log_dir)
     try:
         yield log_dir

@@ -1,6 +1,6 @@
 // hetpu native runtime: TCP transport + size-prefixed framing.
 //
-// TPU-native counterpart of the reference's native socket layer
+// Counterpart of the reference's native socket layer
 // (src/core/socket_io.cpp read_all/write_all; client.cpp:20-64 connect
 // scan; server.cpp:27-90 bind/listen/accept on ports 8080-8100) — the
 // byte-transport under the client/server offload protocol.  Exposed to

@@ -1,12 +1,12 @@
-"""Bit-exact parity of the MXU (int8-matmul) NTT with the four-step
-butterfly kernels — the property every scheme op relies on when the TPU
-dispatch swaps kernels (same strategy as tests/test_pallas_ntt.py)."""
+"""Bit-exact parity of the int8 digit NTT with the four-step butterfly
+reference — the property every scheme op relies on when core/backend.py
+swaps paths."""
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from hetpu.core import mxu_ntt, ntt4
+from hetpu.core import int8_ntt, ntt4
 from hetpu.core import nt
 from hetpu.core.ntt import build_tables as build_flat
 
@@ -30,21 +30,21 @@ def _rand(rng, shape, primes):
 def test_fwd_matches_four_step(rng, t4096):
     x = _rand(rng, (2, len(t4096.primes), t4096.n), t4096.primes)
     ref = ntt4.ntt_fwd(x, t4096)
-    out = mxu_ntt.ntt_fwd(x, t4096)
+    out = int8_ntt.ntt_fwd(x, t4096)
     assert (np.asarray(ref) == np.asarray(out)).all()
 
 
 def test_inv_matches_four_step(rng, t4096):
     x = _rand(rng, (2, len(t4096.primes), t4096.n), t4096.primes)
     ref = ntt4.ntt_inv(x, t4096)
-    out = mxu_ntt.ntt_inv(x, t4096)
+    out = int8_ntt.ntt_inv(x, t4096)
     assert (np.asarray(ref) == np.asarray(out)).all()
 
 
 def test_inv_strip_mont(rng, t4096):
     x = _rand(rng, (1, len(t4096.primes), t4096.n), t4096.primes)
     ref = ntt4.ntt_inv(x, t4096, strip_mont=True)
-    out = mxu_ntt.ntt_inv(x, t4096, strip_mont=True)
+    out = int8_ntt.ntt_inv(x, t4096, strip_mont=True)
     assert (np.asarray(ref) == np.asarray(out)).all()
 
 
@@ -54,13 +54,13 @@ def test_fwd_to_mont(rng, t4096):
     ref = shoup_mul(ntt4.ntt_fwd(x, t4096),
                     jnp.asarray(t4096.r), jnp.asarray(t4096.r_shoup),
                     jnp.asarray(t4096.q))
-    out = mxu_ntt.ntt_fwd(x, t4096, to_mont=True)
+    out = int8_ntt.ntt_fwd(x, t4096, to_mont=True)
     assert (np.asarray(ref) == np.asarray(out)).all()
 
 
 def test_roundtrip_identity(rng, t4096):
     x = _rand(rng, (1, len(t4096.primes), t4096.n), t4096.primes)
-    back = mxu_ntt.ntt_inv(mxu_ntt.ntt_fwd(x, t4096), t4096)
+    back = int8_ntt.ntt_inv(int8_ntt.ntt_fwd(x, t4096), t4096)
     assert (np.asarray(back) == np.asarray(x)).all()
 
 
@@ -69,9 +69,9 @@ def test_n2_256_shape(rng):
     n = 1 << 15
     t = ntt4.build_tables(n, _primes(n, 2))
     x = _rand(rng, (1, 2, n), t.primes)
-    assert (np.asarray(mxu_ntt.ntt_fwd(x, t)) ==
+    assert (np.asarray(int8_ntt.ntt_fwd(x, t)) ==
             np.asarray(ntt4.ntt_fwd(x, t))).all()
-    assert (np.asarray(mxu_ntt.ntt_inv(x, t)) ==
+    assert (np.asarray(int8_ntt.ntt_inv(x, t)) ==
             np.asarray(ntt4.ntt_inv(x, t))).all()
 
 
@@ -81,7 +81,7 @@ def test_worst_case_residues(t4096):
     q = np.array(t4096.primes, dtype=np.uint32).reshape(-1, 1)
     for val in (q - 1, q // 2, q // 2 + 1):
         x = jnp.asarray(np.broadcast_to(val, (L, t4096.n)).copy())
-        assert (np.asarray(mxu_ntt.ntt_fwd(x, t4096)) ==
+        assert (np.asarray(int8_ntt.ntt_fwd(x, t4096)) ==
                 np.asarray(ntt4.ntt_fwd(x, t4096))).all()
 
 
@@ -94,7 +94,7 @@ def test_fwd_lifted_matches_explicit_decompose(rng):
     from hetpu.core.ntt import ntt_fwd
 
     from hetpu.core.params import ckks_params
-    # N >= 4096 so the key basis gets four-step (MXU-shaped) tables
+    # N >= 4096 so the key basis gets four-step tables
     ctx = Context(ckks_params(1 << 12, levels=5, scale_bits=30,
                               num_special=2, first_prime_bits=31,
                               special_prime_bits=31, sec_level=0))
@@ -120,26 +120,39 @@ def test_fwd_lifted_matches_explicit_decompose(rng):
         accs.append(acc)
     want = ntt_fwd(jnp.concatenate(accs, axis=-2), plan.foreign_cat_tables)
 
-    got = mxu_ntt.ntt_fwd_lifted(y, plan.lift_w, plan.lift_ws,
+    got = int8_ntt.ntt_fwd_lifted(y, plan.lift_w, plan.lift_ws,
                                  plan.lift_dig, plan.foreign_cat_tables)
     assert (np.asarray(got) == np.asarray(want)).all()
 
 
-def test_shoup_fast_exact(rng):
-    """The 3-multiply approximate-mulhi Shoup (_shoup_fast) is exact for
-    q < 2^30 for ANY u32 input x (incl. the REDC output range ≥ 2^31)
-    — the property the bench_n14_fast kernels rely on."""
-    for qbits in (28, 29, 30):
-        q = int(nt.gen_primes(qbits, 1, 2048)[0])
-        assert q < (1 << 30)
-        w = rng.integers(0, q, 256, dtype=np.uint64)
-        ws = ((w << 32) // q).astype(np.uint32)
-        x = np.concatenate([
-            rng.integers(0, 1 << 32, 192, dtype=np.uint64),
-            np.array([0, 1, q - 1, q, 2 * q, (1 << 32) - 1], np.uint64),
-            rng.integers((1 << 31), 1 << 32, 58, dtype=np.uint64)])
-        want = (x * w) % q
-        got = np.asarray(mxu_ntt._shoup_fast(
-            jnp.asarray(x.astype(np.uint32)), jnp.asarray(w.astype(np.uint32)),
-            jnp.asarray(ws), jnp.uint32(q))).astype(np.uint64)
-        assert (got == want).all()
+@pytest.mark.parametrize("variant", ["fwd", "fwd_mont", "inv", "inv_strip",
+                                     "inv_strip_extra"])
+def test_ntt4_dispatch_int8_path(rng, t4096, variant):
+    """ntt4's entry points under backend.using(INT8) route to the digit
+    path and keep every epilogue bit-exact to the butterfly path."""
+    from hetpu.core import backend
+    L = len(t4096.primes)
+    x = _rand(rng, (2, L, t4096.n), t4096.primes)
+    extra = np.array([3, 5, 7], dtype=np.uint32)[:L]
+    calls = {
+        "fwd": lambda a: ntt4.ntt_fwd(a, t4096),
+        "fwd_mont": lambda a: ntt4.ntt_fwd(a, t4096, to_mont=True),
+        "inv": lambda a: ntt4.ntt_inv(a, t4096),
+        "inv_strip": lambda a: ntt4.ntt_inv(a, t4096, strip_mont=True),
+        "inv_strip_extra": lambda a: ntt4.ntt_inv(a, t4096, strip_mont=True,
+                                                  extra=extra),
+    }
+    want = np.asarray(calls[variant](x))
+    with backend.using(backend.INT8):
+        got = np.asarray(calls[variant](x))
+    assert (want == got).all()
+
+
+def test_digit_tables_dedupe_repeated_primes(t4096):
+    """A basis that repeats primes (the concatenated foreign key bases)
+    stores one digit matrix per unique prime and gathers per row."""
+    t = t4096.slice([0, 1, 0, 2, 1])
+    mt = int8_ntt.tables_for(t)
+    assert mt.has_dups and len(mt.uniq_primes) == 3
+    assert list(mt.prime_idx) == [0, 1, 0, 2, 1]
+    assert mt.w1.shape[0] == 3

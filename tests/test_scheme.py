@@ -160,7 +160,7 @@ def test_mod_switch(env, rng):
 
 
 def test_batched_ciphertexts(env, rng):
-    """Leading batch axes flow through every op (the TPU batching story —
+    """Leading batch axes flow through every op (the batching story —
     SURVEY.md §2d 'Slot/SIMD batching' becomes an array axis here)."""
     import jax.numpy as jnp
     enc, dec, ev = env["enc"], env["dec"], env["ev"]
