@@ -14,11 +14,10 @@ One card:
            directory, the card's name and power limit
   ntt      bench_n14: the golden vectors on the device path; forward,
            inverse, digit-lift and fast-base-conversion variants bit by
-           bit against the host CPU; the int8 digit path against the
-           butterfly path on the card
+           bit against the host CPU
   op       bench_n14, B=8: multiply_relin_rescale, rotate,
            rotate_hoisted and mod_switch decrypt-compared; the batched
-           fused op bit-exact against the plain path on the host CPU
+           fused op bit-exact against the same op on the host CPU
   bfv      bfv_batch: multiply_relin, exact
   lsq      least_squares_2d at full size (ckks_deep_hi), error < 2^-10
   served   the offload ``inv`` request at full size (ckks_deep), client
@@ -90,12 +89,11 @@ def phase_device(cfg):
 
 
 def _on_host(fn, *args):
-    """fn on the host CPU backend, on the plain path: the card's results
-    are compared with these bit by bit."""
+    """fn on the host CPU backend: the card's results are compared with
+    these bit by bit."""
     import jax
-    from hetpu.core import backend
     cpu = jax.devices("cpu")[0]
-    with jax.default_device(cpu), backend.using(backend.BUTTERFLY):
+    with jax.default_device(cpu):
         return jax.jit(fn)(*(jax.device_put(a, cpu) for a in args))
 
 
@@ -103,7 +101,7 @@ def phase_ntt(cfg):
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from hetpu.core import backend, int8_ntt, ntt4, rns
+    from hetpu.core import backend, ntt4, rns
     from hetpu.core.context import Context
     from hetpu.core.ntt import ntt_fwd, ntt_inv
     ctx = Context(_params(cfg["ntt"]))
@@ -138,10 +136,6 @@ def phase_ntt(cfg):
         return ntt4.ntt_inv(a, tl, strip_mont=True, extra=ks.dig_inv)
 
     def lifted(a):
-        return int8_ntt.ntt_fwd_lifted(a, ks.lift_w, ks.lift_ws, ks.lift_dig,
-                                       ks.foreign_cat_tables)
-
-    def lifted_plain(a):
         from hetpu.core.modular import mod_add, shoup_mul
         accs = []
         for di, (lo, hi) in enumerate(ks.digit_bounds):
@@ -160,24 +154,13 @@ def phase_ntt(cfg):
                                           premul=False),
                             md.dst_tables, to_mont=True)
 
-    def int8(fn):
-        def run(a):
-            with backend.using(backend.INT8):      # a fresh trace
-                return jax.jit(lambda v: fn(v))(a)
-        return run
-
-    # (name, device result, reference): the device path against the host
-    # CPU, and the int8 digit path against the butterfly path, on the card
+    # (name, device result, reference on the host CPU)
     cases = (
         ("fwd vs host", lambda: jax.jit(fwd)(x), lambda: _on_host(fwd, x)),
         ("inv vs host", lambda: jax.jit(inv)(x), lambda: _on_host(inv, x)),
         ("fbc vs host", lambda: jax.jit(fbc)(u), lambda: _on_host(fbc, u)),
-        ("lifted vs host", lambda: jax.jit(lifted_plain)(x),
-         lambda: _on_host(lifted_plain, x)),
-        ("int8 fwd", lambda: int8(fwd)(x), lambda: jax.jit(fwd)(x)),
-        ("int8 inv", lambda: int8(inv)(x), lambda: jax.jit(inv)(x)),
-        ("int8 lifted", lambda: int8(lifted)(x),
-         lambda: jax.jit(lifted_plain)(x)),
+        ("lifted vs host", lambda: jax.jit(lifted)(x),
+         lambda: _on_host(lifted, x)),
     )
     for name, got, want in cases:
         got, want = np.asarray(got()), np.asarray(want())
@@ -203,7 +186,6 @@ def _session(cfg, name, steps):
 def phase_op(cfg):
     import numpy as np
     import jax.numpy as jnp
-    from hetpu.core import backend
     from hetpu.core.evaluator import Evaluator
     sess = _session(cfg, cfg["op"], [1])
     ev = sess.ev
@@ -233,7 +215,7 @@ def phase_op(cfg):
         a.with_(data=da), b.with_(data=db), rk).data, a.data, b.data, sess.rk)
     bad = int((np.asarray(got.data) != np.asarray(want)).sum())
     _check(bad == 0, f"batched fused op: {bad} elements differ from the "
-                     f"plain path on the host CPU")
+                     f"same op on the host CPU")
     err_b = max(_max_err(sess.decrypt(got.with_(data=got.data[i])),
                          xs[i] * ys[i]) for i in range(B))
     _check(err_b < 2e-3, f"batched fused op decrypt error {err_b}")

@@ -1,32 +1,20 @@
 """Which NTT implementation runs on which platform — decided here only.
 
-Two implementations compute the same negacyclic transform, bit for bit
-(tests/test_int8_ntt.py, tests/test_backend.py):
-
-* ``butterfly`` — ntt4's four-step Cooley-Tukey / Gentleman-Sande stage
-  loops in plain jnp, lowered by XLA.  The readable reference.
-* ``int8`` — int8_ntt's digit formulation: each size-n1/n2 sub-transform
-  is an exact modular matrix product of signed 8-bit digits with 32-bit
-  accumulation, written as jnp einsums that XLA lowers to integer GEMMs.
-
-The choice is keyed by platform alone.  On the H100 the butterfly path is
-the faster of the two inside multiply_relin_rescale at ckks_deep_hi
-(1352.8 vs 1027.7 ops/s at B=8) and within the run-to-run spread at
-bench_n14 (PERF.md, Findings), so both platforms take it today; the int8
-path stays selectable with ``using`` for comparison
-(scripts/ntt_paths.py).  Flat tables (N < 4096) always take ntt.py's
-stage loop; that is a choice by size, made in ntt.py.
+Every supported platform runs ntt4's four-step Cooley-Tukey /
+Gentleman-Sande stage loops in plain jnp, lowered by XLA.  On the H100,
+inside multiply_relin_rescale at B=8, it was 32% faster than int8 digit
+matrix products at ckks_deep_hi and 6% slower at bench_n14; one path was
+kept over a second one chosen by ring size (PERF.md, Findings).  Flat
+tables (N < 4096) take ntt.py's stage loop; that is a choice by size,
+made in ntt.py.  Context asks for the path when it is built, so an
+unsupported platform fails there instead of running untested code.
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import jax
 
 BUTTERFLY = "butterfly"
-INT8 = "int8"
-PATHS = (BUTTERFLY, INT8)
 
 # platform (jax.default_backend()) -> NTT path
 _BY_PLATFORM = {
@@ -34,15 +22,11 @@ _BY_PLATFORM = {
     "gpu": BUTTERFLY,
 }
 
-_override: str | None = None
-
 
 def ntt_path(platform: str | None = None) -> str:
     """The NTT implementation for ``platform`` (default: JAX's default
     backend).  An unknown platform is an error, never a silent default."""
     if platform is None:
-        if _override is not None:
-            return _override
         platform = jax.default_backend()
     try:
         return _BY_PLATFORM[platform]
@@ -50,18 +34,3 @@ def ntt_path(platform: str | None = None) -> str:
         raise RuntimeError(
             f"hetpu has no NTT path for platform {platform!r}; "
             f"supported: {sorted(_BY_PLATFORM)}") from None
-
-
-@contextlib.contextmanager
-def using(path: str):
-    """Trace under another NTT path: for comparing the paths on one
-    device, and for tests.  Only code traced inside the block sees it, so
-    build a fresh Evaluator (fresh jit wrappers) for each path."""
-    global _override
-    if path not in PATHS:
-        raise ValueError(f"unknown NTT path {path!r}; one of {PATHS}")
-    old, _override = _override, path
-    try:
-        yield
-    finally:
-        _override = old

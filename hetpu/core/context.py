@@ -18,7 +18,7 @@ from functools import lru_cache
 
 import numpy as np
 
-from . import nt
+from . import backend, nt
 from .modular import mont_constants, shoup_precompute
 from .ntt import NttTables, build_best_tables, build_tables
 from .params import HeParams, Scheme
@@ -114,12 +114,6 @@ class KeySwitchPlan:
     foreign_cat_tables: object
     dhat: np.ndarray             # [ℓ+1,R]  (D_j/q_i) mod r
     dhat_shoup: np.ndarray
-    # lift view of dhat for the int8 digit path (int8_ntt.ntt_fwd_lifted):
-    # row f of the concatenated-foreign basis takes
-    # Σ_{i<α} y[dig_f·α + i]·lift_w[f,i] (zero-padded for short digits)
-    lift_w: np.ndarray           # [F, α] u32
-    lift_ws: np.ndarray          # [F, α]
-    lift_dig: np.ndarray         # [F] int32 digit index per foreign row
     moddown: ModDownPlan
 
 
@@ -129,6 +123,7 @@ class Context:
     caches them)."""
 
     def __init__(self, params: HeParams):
+        backend.ntt_path()          # an unsupported platform fails here
         self.params = params
         n = params.poly_degree
         self.all_primes: tuple[int, ...] = params.moduli + params.special_moduli
@@ -252,25 +247,6 @@ class Context:
         foreign_idx = tuple(
             np.concatenate([np.arange(lo), np.arange(hi, R)])
             for (lo, hi) in bounds)
-        # fused-lift weights over the concatenated foreign basis
-        F = sum(len(f) for f in foreign_idx)
-        lift_w = np.zeros((F, alpha), dtype=np.uint32)
-        lift_dig = np.zeros(F, dtype=np.int32)
-        row = 0
-        for d, (lo, hi) in enumerate(bounds):
-            for f in foreign_idx[d]:
-                lift_dig[row] = d
-                for i in range(hi - lo):
-                    lift_w[row, i] = dhat[lo + i, f]
-                row += 1
-        lift_ws = np.zeros_like(lift_w)
-        row = 0
-        for d in range(J):
-            for f in foreign_idx[d]:
-                r = basis_primes[int(f)]
-                lift_ws[row] = ((lift_w[row].astype(np.uint64) << np.uint64(32))
-                                // np.uint64(r)).astype(np.uint32)
-                row += 1
         return KeySwitchPlan(
             level=level,
             alpha=alpha,
@@ -290,9 +266,6 @@ class Context:
             rinv_shoup=shoup_precompute(rinv, _col(active)),
             dhat=dhat,
             dhat_shoup=dhat_shoup,
-            lift_w=lift_w,
-            lift_ws=lift_ws,
-            lift_dig=lift_dig,
             moddown=moddown,
         )
 

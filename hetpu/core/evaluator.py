@@ -24,7 +24,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from . import backend, galois, int8_ntt, rns
+from . import galois, rns
 from .ciphertext import Ciphertext, Plaintext, check_add_compat, scales_close
 from .context import Context, KeySwitchPlan, RescalePlan
 from .keys import GaloisKeys, KSwitchKey, RelinKeys
@@ -188,31 +188,22 @@ class Evaluator:
         #    from the still-NTT-domain input with a single Shoup multiply —
         #    no INTT→NTT roundtrip (J·α fewer key-basis NTT planes).
         y = ntt_inv(d, tabs, strip_mont=True, extra=plan.dig_inv)
-        if (backend.ntt_path() == backend.INT8
-                and hasattr(plan.foreign_cat_tables, "sub1")):
-            # lift folded into the digit NTT's first product input
-            # (int8_ntt.ntt_fwd_lifted).  Bit-exact to the explicit loop
-            # below (same accumulation order, zero-padded tail terms).
-            lifted_cat = int8_ntt.ntt_fwd_lifted(
-                y, plan.lift_w, plan.lift_ws, plan.lift_dig,
-                plan.foreign_cat_tables)
-        else:
-            accs = []
-            for di, (lo, hi) in enumerate(plan.digit_bounds):
-                foreign = plan.foreign_idx[di]
-                qf = plan.q[foreign]
-                acc = None
-                for i in range(lo, hi):
-                    term = shoup_mul(y[..., i: i + 1, :],
-                                     plan.dhat[i][foreign][:, None],
-                                     plan.dhat_shoup[i][foreign][:, None],
-                                     qf)
-                    acc = term if acc is None else mod_add(acc, term, qf)
-                accs.append(acc)
-            # ONE forward NTT over every digit's lifted planes
-            # (concatenated foreign bases — duplicate primes fine)
-            lifted_cat = ntt_fwd(jnp.concatenate(accs, axis=-2),
-                                 plan.foreign_cat_tables)
+        accs = []
+        for di, (lo, hi) in enumerate(plan.digit_bounds):
+            foreign = plan.foreign_idx[di]
+            qf = plan.q[foreign]
+            acc = None
+            for i in range(lo, hi):
+                term = shoup_mul(y[..., i: i + 1, :],
+                                 plan.dhat[i][foreign][:, None],
+                                 plan.dhat_shoup[i][foreign][:, None],
+                                 qf)
+                acc = term if acc is None else mod_add(acc, term, qf)
+            accs.append(acc)
+        # ONE forward NTT over every digit's lifted planes
+        # (concatenated foreign bases — duplicate primes fine)
+        lifted_cat = ntt_fwd(jnp.concatenate(accs, axis=-2),
+                             plan.foreign_cat_tables)
         exts = []
         off = 0
         for di, (lo, hi) in enumerate(plan.digit_bounds):

@@ -168,8 +168,7 @@ def ntt_fwd(a: jnp.ndarray, t) -> jnp.ndarray:
 
 def ntt_fwd_mont(a: jnp.ndarray, t) -> jnp.ndarray:
     """Forward NTT of standard-form coeffs → Montgomery-form evaluations
-    (one extra Shoup pass to multiply by R mod q; folded into the last
-    recombination on the int8 digit paths)."""
+    (one extra Shoup pass to multiply by R mod q)."""
     if hasattr(t, "sub1"):
         from . import ntt4
         return ntt4.ntt_fwd(a, t, to_mont=True)
@@ -183,7 +182,7 @@ def ntt_inv(a: jnp.ndarray, t, *, strip_mont: bool = False,
     Montgomery-form and the output standard-form (N⁻¹R⁻¹ folded into the
     final constant — the conversion is free).  ``extra`` (with
     strip_mont) folds an additional per-limb constant multiply into the
-    epilogue (free on the int8 digit paths; one Shoup pass otherwise)."""
+    epilogue (one Shoup pass)."""
     if hasattr(t, "sub1"):
         from . import ntt4
         return ntt4.ntt_inv(a, t, strip_mont=strip_mont, extra=extra)

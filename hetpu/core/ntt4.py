@@ -19,9 +19,7 @@ big-ψ twist and the step-3 untwist (derivation in git history / tests).
 ntt.ntt_fwd / ntt_inv (pinned by tests/test_ntt4.py), so galois tables,
 the encoder, and every evaluator op are unchanged.  Dispatch: Context
 builds FourStepTables for N ≥ 4096, and ntt.ntt_fwd/ntt_inv route here
-when given one.  The butterfly stage loops below are the plain path;
-backend.py may send the transform to int8_ntt's digit formulation
-instead (same bits).
+when given one.
 """
 
 from __future__ import annotations
@@ -31,7 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import jax.numpy as jnp
 
-from . import backend, int8_ntt, nt
+from . import nt
 from .modular import mod_add, mod_sub, shoup_mul, shoup_precompute
 from . import ntt as flat
 
@@ -202,8 +200,6 @@ def _inv_axis2(x, t: flat.NttTables, *, strip_mont: bool):
 def ntt_fwd(a, t: FourStepTables, *, to_mont: bool = False):
     """[..., L, N] → bit-exact equivalent of flat ntt_fwd (times R mod q
     with ``to_mont``: Montgomery-form evaluations)."""
-    if backend.ntt_path() == backend.INT8:
-        return int8_ntt.ntt_fwd(a, t, to_mont=to_mont)
     lead = a.shape[:-2]
     L = a.shape[-2]
     x = a.reshape(*lead, L, t.n1, t.n2)
@@ -217,8 +213,6 @@ def ntt_fwd(a, t: FourStepTables, *, to_mont: bool = False):
 
 
 def ntt_inv(a, t: FourStepTables, *, strip_mont: bool = False, extra=None):
-    if backend.ntt_path() == backend.INT8:
-        return int8_ntt.ntt_inv(a, t, strip_mont=strip_mont, extra=extra)
     if extra is not None:
         out = ntt_inv(a, t, strip_mont=strip_mont)
         q = t.q

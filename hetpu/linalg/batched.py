@@ -355,7 +355,7 @@ class BatchedMatrix:
         if mesh is not None and self._mesh_routable(mesh, d, p):
             # route the rotation hot loop through the bucketed sharded
             # kernel (parallel.bucketed_matvec): rotation buckets + galois
-            # key shards per device, one modular all-reduce over ICI
+            # key shards per device, one modular all-reduce over NVLink
             from .. import parallel
             out = parallel.bucketed_matvec(
                 sess, a, b.with_(data=b.data[0]), d, mesh, sess.mesh_axis)

@@ -8,7 +8,7 @@ and anchored to the reference's behavioral patterns:
   (`shard_batch`); thousands of independent ciphertexts spread over chips.
 * **rotation/key parallelism** — the diagonal-matmul hot loop's rotations
   bucketed across a mesh axis, Galois keys sharded with their buckets,
-  per-device partial sums combined by a modular all-reduce over ICI
+  per-device partial sums combined by a modular all-reduce over NVLink
   (`bucketed_matvec`) — the BASELINE north-star pattern.
 * **modular collectives** — `mod_all_reduce`: uint32 residues can't ride a
   plain `psum` (overflow); a ppermute butterfly with `mod_add` at each of
@@ -74,7 +74,7 @@ def bucketed_matvec(sess: Session, diags: Ciphertext, vec: Ciphertext,
     ``he_linalg.cpp:977-1003``) is bucketed across `axis`: every device
     key-switches only its rotation bucket with only its shard of the
     Galois keys, accumulates a 3-part partial sum, and the partials meet
-    in a modular all-reduce over ICI.  The key-switch digit decomposition
+    in a modular all-reduce over NVLink.  The key-switch digit decomposition
     of v is computed once per device (hoisting).
 
     Requires: d divisible by the axis size; session galois keys for steps

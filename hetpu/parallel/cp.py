@@ -18,7 +18,7 @@ the ring-attention-style block exchange the survey calls for:
 
 Per-device butterfly work is the full transform's /cp; the only
 communication is one all_to_all of N/cp·L u32 per limb-plane — on real
-hardware it rides ICI inside ``shard_map``.
+hardware it rides NVLink inside ``shard_map``.
 
 Bit-exact: identical output to ``ntt.ntt_fwd``/``ntt_inv`` on the same
 FourStepTables (asserted in tests/test_parallel.py).

@@ -3,7 +3,7 @@
 SURVEY.md §2d "Limb (RNS) parallelism": shard the RNS-limb axis across
 devices (the TP analog); NTT per-limb is embarrassingly parallel;
 key-switch base conversion needs a cross-limb reduce → collectives over
-ICI.  This module implements that design explicitly with ``shard_map`` —
+NVLink.  This module implements that design explicitly with ``shard_map`` —
 no auto-SPMD guessing (VERDICT r2 item 4a).
 
 Layout.  ``tp`` devices each own a contiguous slice of the DATA-limb axis
@@ -24,7 +24,7 @@ them keeps the key-switch mod-down collective-free).  Per relinearize:
 
 Per-device NTT work scales as (L/tp + α) vs the single-chip (L + α);
 the only communication is step 2's butterfly (J·R·N u32 per round,
-log₂ tp rounds) riding ICI.
+log₂ tp rounds) riding NVLink.
 
 Bit-exactness: every step reorders only modular additions, so the sharded
 relinearize equals ``Evaluator.relinearize`` EXACTLY (asserted in

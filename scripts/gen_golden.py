@@ -15,7 +15,7 @@ Coverage (VERDICT r2 item 5): NTT/INTT on the full bench_n14 basis
 the dropped prime) at both sizes; plus kernel-regression pins for the
 fused multiply+relin+rescale and the BFV CRT multiply captured from the
 CPU path under fixed seeds (exact u32 equality across platforms and NTT
-implementations is a scheme invariant — tests/test_int8_ntt.py).
+implementations is a scheme invariant — tests/test_ntt4.py).
 
 Runs on the host CPU only.
 Run:  python scripts/gen_golden.py        (writes tests/golden/*.npz)

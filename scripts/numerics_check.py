@@ -52,10 +52,10 @@ def main(argv=None):
         print(json.dumps({**kw, "device": dev["kind"], "card": card}),
               flush=True)
 
-    def both(fn, *args, path=None):
-        """fn on the GPU (its own path) and on the CPU (butterfly)."""
+    def both(fn, *args):
+        """fn on the GPU and on the CPU."""
         g = jax.jit(fn)(*(jax.device_put(a, gpu) for a in args))
-        with jax.default_device(cpu), backend.using(backend.BUTTERFLY):
+        with jax.default_device(cpu):
             c = jax.jit(fn)(*(jax.device_put(a, cpu) for a in args))
         return jax.tree.map(np.asarray, g), jax.tree.map(np.asarray, c)
 
@@ -92,12 +92,12 @@ def main(argv=None):
              planes=int(np.prod(g.shape[:-1])),
              mismatches=int((g != c).sum()))
 
-    # 3. the fused op end to end, GPU path against CPU butterfly
+    # 3. the fused op end to end, GPU against CPU
     x = rng.uniform(-1, 1, sess.slots)
     y = rng.uniform(-1, 1, sess.slots)
     cx, cy = sess.encrypt(x), sess.encrypt(y)
     g = Evaluator(ctx).multiply_relin_rescale(cx, cy, sess.rk)
-    with jax.default_device(cpu), backend.using(backend.BUTTERFLY):
+    with jax.default_device(cpu):
         to_cpu = lambda ct: ct.with_(data=jax.device_put(ct.data, cpu))
         rk_cpu = jax.device_put(sess.rk, cpu)
         c = Evaluator(ctx).multiply_relin_rescale(to_cpu(cx), to_cpu(cy),

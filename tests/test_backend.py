@@ -1,11 +1,10 @@
-"""core/backend.py: the one place that picks the NTT path per platform,
-and the evaluator staying bit-exact whichever path it is given."""
+"""core/backend.py: the one place that picks the NTT path per platform;
+and where the compile cache goes."""
 
 import subprocess
 import sys
 import pathlib
 
-import numpy as np
 import pytest
 
 from hetpu.core import backend
@@ -25,55 +24,21 @@ def test_ntt_path_by_platform(platform, path):
             backend.ntt_path(platform)
     else:
         assert backend.ntt_path(platform) == path
-        assert path in backend.PATHS
-
-
-def test_every_platform_maps_to_a_known_path():
-    assert set(backend._BY_PLATFORM.values()) <= set(backend.PATHS)
 
 
 def test_default_platform_here_is_cpu():
     assert backend.ntt_path() == backend.BUTTERFLY
 
 
-def test_using_overrides_and_restores():
-    with backend.using(backend.INT8):
-        assert backend.ntt_path() == backend.INT8
-        with backend.using(backend.BUTTERFLY):
-            assert backend.ntt_path() == backend.BUTTERFLY
-        assert backend.ntt_path() == backend.INT8
-        assert backend.ntt_path("gpu") == backend.BUTTERFLY   # explicit
-    assert backend.ntt_path() == backend.BUTTERFLY
-    with pytest.raises(ValueError):
-        with backend.using("pallas"):
-            pass
-
-
-def test_evaluator_int8_path_bit_exact():
-    """The fused op, a rotation and the fused-lift decompose on the int8
-    einsum path equal the butterfly path bit for bit (N=4096, so every
-    basis gets four-step tables)."""
-    from hetpu.core.evaluator import Evaluator
-    from hetpu.core.params import ckks_params
-    from hetpu.session import Session
-    sess = Session.create(
-        ckks_params(1 << 12, levels=3, scale_bits=30, num_special=2,
-                    first_prime_bits=31, special_prime_bits=31,
-                    sec_level=0), seed=b"\x61" * 32, galois_steps=[1])
-    rng = np.random.default_rng(3)
-    x = rng.uniform(-1, 1, sess.slots)
-    cx, cy = sess.encrypt(x), sess.encrypt(x[::-1].copy())
-    outs = {}
-    for path in (backend.BUTTERFLY, backend.INT8):
-        with backend.using(path):
-            ev = Evaluator(sess.ctx)
-            outs[path] = (
-                np.asarray(ev.multiply_relin_rescale(cx, cy, sess.rk).data),
-                np.asarray(ev.rotate(cx, 1, sess.gk).data))
-    for a, b in zip(outs[backend.BUTTERFLY], outs[backend.INT8]):
-        assert (a == b).all()
-    got = sess.decrypt(cx.with_(data=outs[backend.INT8][1]))
-    np.testing.assert_allclose(got.real, np.roll(x, -1), atol=1e-2)
+@pytest.mark.parametrize("platform", ["rocm", "metal"])
+def test_context_refuses_unknown_platform(monkeypatch, platform):
+    """Building a Context on a platform with no NTT path fails at once,
+    before any table is built."""
+    from hetpu.core.context import Context
+    from hetpu.core.params import preset
+    monkeypatch.setattr(backend.jax, "default_backend", lambda: platform)
+    with pytest.raises(RuntimeError, match="no NTT path"):
+        Context(preset("test_tiny"))
 
 
 @pytest.mark.parametrize("env_dir", [None, "given"])

@@ -7,8 +7,7 @@ tests).  On the card:
 
     python -m pytest tests/test_gpu_e2e.py -m gpu -n 0
 
-Covers bench_n14 (the headline fused op, on the NTT path core/backend.py
-picks for the GPU), BFV at the 60-bit CRT preset, and an in-slot FFT.
+Covers bench_n14 (the headline fused op), BFV at the 60-bit CRT preset, and an in-slot FFT.
 """
 
 import pathlib
